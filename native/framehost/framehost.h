@@ -1,13 +1,13 @@
 // framehost — native host-side runtime for retrocapture_tpu.
 //
-// TPU-native equivalents of the reference's host-performance components:
+// Host-side equivalents of the reference's performance components:
 //  * the capture thread's bounded frame queue with drop-oldest overflow
 //    and captureLatestFrame drain-to-newest semantics
 //    (src/capture/VideoCaptureRemote.h:182-188, IVideoCapture.h:76);
 //  * utils/PixelFormatConverter (BT.601 limited-range YUV->RGB24,
 //    NV12/YUYV/UYVY/BGRA, PixelFormatConverter.h:6-9) — the scalar loops
 //    are written so -O3 auto-vectorizes them (the reference leans on
-//    libswscale SIMD; here the TPU does conversion on-device and this
+//    libswscale SIMD; here the device does conversion in the chain and this
 //    host path feeds non-device consumers, tests, and benchmarks);
 //  * capture/VideoCaptureTestPattern.cpp:56-102's SMPTE-bar generator.
 //

@@ -3,7 +3,7 @@
 // The rigorous parity oracle for retrocapture_tpu: runs one GLSL pass on
 // Mesa llvmpipe (EGL surfaceless, GL compatibility profile) exactly as a
 // GL driver would — same compiler, same filtering, same FBO formats — so
-// the TPU engine's output can be PSNR-checked against REAL GL without a
+// the JAX engine's output can be PSNR-checked against REAL GL without a
 // GPU or display. The Python driver (retrocapture_tpu/parity/oracle.py)
 // owns preset parsing, the pass graph, and the RetroArch uniform
 // protocol; this binary is a dumb, crash-isolated executor.

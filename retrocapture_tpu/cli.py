@@ -28,7 +28,7 @@ DEFAULT_SHADER_ROOT = "/root/reference/shaders/shaders_glsl"
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="retrocapture_tpu",
-        description="TPU-native retro-shader video pipeline",
+        description="retro-shader video pipeline (RetroArch .glslp chains on JAX)",
     )
     ap.add_argument("--source", default="test", choices=["test", "npy", "png"],
                     help="frame source: synthetic test pattern, .npy batch, or PNG file")
@@ -153,7 +153,10 @@ def main(argv=None) -> int:
         if frames.ndim == 3:
             frames = frames[None]
     else:  # png
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise SystemExit("--source png needs Pillow (pip install pillow)") from e
 
         with Image.open(args.input) as im:
             frames = np.asarray(im.convert("RGB"))[None]
@@ -190,7 +193,13 @@ def main(argv=None) -> int:
         prefix.parent.mkdir(parents=True, exist_ok=True)
         np.save(str(prefix) + ".npy", result)
         if result.ndim == 3 or result.shape[0] == 1:
-            from PIL import Image
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise SystemExit(
+                    "writing the .png preview needs Pillow (pip install pillow); "
+                    f"the frames are in {prefix}.npy"
+                ) from e
 
             img = result if result.ndim == 3 else result[0]
             Image.fromarray(

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -36,6 +37,14 @@ __all__ = ["call_builtin", "is_builtin", "apply_binary", "apply_unary", "trunc_d
 
 def _xp(*datas):
     return np if all(is_concrete(d) for d in datas) else jnp
+
+
+def _einsum(xp, spec: str, a, b):
+    """GLSL matrix products are f32: traced ones run at HIGHEST so a
+    backend's TF32 default cannot round the operands."""
+    if xp is np:
+        return np.einsum(spec, a, b)
+    return jnp.einsum(spec, a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _align_variadic(args: list[V]) -> tuple[list, GType]:
@@ -195,7 +204,7 @@ def _mat_mul(a: V, b: V) -> V:
         c, r = a.type.shape
         if b.type.shape[0] != c:
             raise GlslEvalError(f"mat{a.type.shape} * vec{b.type.shape}")
-        out = xp.einsum("...cr,...c->...r", a.data, b.astype("float").data)
+        out = _einsum(xp, "...cr,...c->...r", a.data, b.astype("float").data)
         aff = _mat_vec_affine(a, b, "mv")
         return V(out, GType("float", (r,)), affine=aff)
     if a.type.is_vector and b.type.is_matrix:
@@ -203,7 +212,7 @@ def _mat_mul(a: V, b: V) -> V:
         c, r = b.type.shape
         if a.type.shape[0] != r:
             raise GlslEvalError(f"vec{a.type.shape} * mat{b.type.shape}")
-        out = xp.einsum("...r,...cr->...c", a.astype("float").data, b.data)
+        out = _einsum(xp, "...r,...cr->...c", a.astype("float").data, b.data)
         aff = _mat_vec_affine(b, a, "vm")
         return V(out, GType("float", (c,)), affine=aff)
     if a.type.is_matrix and b.type.is_matrix:
@@ -212,7 +221,7 @@ def _mat_mul(a: V, b: V) -> V:
         if ca != rb:
             raise GlslEvalError(f"mat{a.type.shape} * mat{b.type.shape}")
         # (a*b)[c] = a * b[c]
-        out = xp.einsum("...kr,...ck->...cr", a.data, b.data)
+        out = _einsum(xp, "...kr,...ck->...cr", a.data, b.data)
         return V(out, GType("float", (cb, ra)))
     raise GlslEvalError(f"bad operands for mat mul: {a.type} {b.type}")
 
@@ -396,7 +405,7 @@ def _b_matrix_comp_mult(a: V, b: V) -> V:
 def _b_outer_product(a: V, b: V) -> V:
     xp = _xp(a.data, b.data)
     # result[c][r] = a[r] * b[c]  (columns = b's length)
-    out = xp.einsum("...r,...c->...cr", a.astype("float").data, b.astype("float").data)
+    out = _einsum(xp, "...r,...c->...cr", a.astype("float").data, b.astype("float").data)
     return V(out, GType("float", (b.type.shape[0], a.type.shape[0])))
 
 
@@ -528,7 +537,7 @@ def _lp_trig(xp, xin, want_cos: bool):
 
     On the concrete (numpy) path FMA is emulated in f64 (exact single
     rounding). The traced path uses stepped f32 ops (~99% exact, 1-ulp
-    tail): TPUs have no f64 and no exposed scalar FMA."""
+    tail): device code runs in f32 with no exposed scalar FMA."""
     f = np.float32
     if xp is np:
         def fma(a, b, c):

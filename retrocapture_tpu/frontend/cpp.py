@@ -19,7 +19,7 @@ implementation of the subset of cpp those shaders use:
 
 We emulate a desktop GL 3.3 context: ``__VERSION__ = 330`` and ``GL_ES``
 undefined, so ``COMPAT_TEXTURE`` resolves to ``texture`` and precision
-qualifiers are no-ops (all math is float32 on TPU).
+qualifiers are no-ops (all math is float32 on the device).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ grid: every GLSL scalar becomes an ``[H, W]`` array (or a NumPy constant
 when compile-time foldable), every vecN an ``[H, W, N]`` array, and
 ``texture()`` becomes a gather (ops/sampling.py). The result is a traced
 JAX computation XLA fuses into a handful of kernels per pass — the
-TPU-native replacement for the reference's per-pass GLSL dispatch
+The replacement for the reference's per-pass GLSL dispatch
 (ShaderEngine::renderMultipassPass, ShaderEngine.cpp:850-1475).
 
 Control flow:
@@ -1226,7 +1226,7 @@ class ShaderEval:
             # concrete mask (or branch grid) handed straight to
             # jnp.where embeds a full [oh, ow] HLO literal — windowed
             # resamplers' per-tap selects were the bulk of the nnedi3/
-            # jinc2 chains' 460 MB programs (timeout_tpu_r5 HTTP 413).
+            # jinc2 chains' 460 MB programs.
             m = (
                 smart_device(np.asarray(cond.data))
                 if is_concrete(cond.data)
@@ -1675,7 +1675,7 @@ class ShaderEval:
             )
 
         # Affine fast path: coords provably separable over the output grid
-        # → two small resampling matmuls on the MXU, no per-pixel coord
+        # → two small resampling matmuls, no per-pixel coord
         # tensors in the graph at all (sampling.sample2d_affine).
         aff = affine_of(uv, uv.type.shape[0]) if uv.type.is_vector else None
         fac = getattr(self.ctx, "factored", None)
@@ -1706,7 +1706,7 @@ class ShaderEval:
                     # taps that sit exactly on texel boundaries
                     # (crt-blurPi's TEX0 +- 0.5-texel offsets). Sample
                     # from the data — sample2d's separable detection
-                    # recovers the same MXU lowering.
+                    # recovers the same matmul lowering.
                     d = np.asarray(uv.data, np.float32)
                     out = sample2d(
                         jnp.asarray(sampler.tex),
@@ -1792,9 +1792,6 @@ class ShaderEval:
                 # constant-fold single-threaded.
                 d = jax.lax.optimization_barrier(jnp.asarray(d))
         u, v = d[..., 0], d[..., 1]
-        n_traced = getattr(self.ctx, "warp_taps_traced", 0)
-        if hasattr(self.ctx, "warp_taps_traced") and np.ndim(u) == 2:
-            self.ctx.warp_taps_traced = n_traced + 1
         if sampler.mipmap and np.ndim(u) == 2:
             # Warped tap on a mipmap_input pass: per-pixel-LOD trilinear
             # over the box pyramid (the reference generates mipmaps on
@@ -1816,7 +1813,6 @@ class ShaderEval:
             v,
             filter_linear=sampler.filter_linear,
             wrap_mode=sampler.wrap_mode,
-            prefer_banded=n_traced >= getattr(self.ctx, "max_pallas_taps", 8),
             quantized_u8=getattr(sampler, "quantized", False),
         )
         return V(out, GType("float", (4,)))

@@ -1,4 +1,4 @@
-"""Phase-factored pass evaluation: the TPU-native answer to GL texel
+"""Phase-factored pass evaluation: the array-program answer to GL texel
 caching for scaling shaders.
 
 A scaling pass samples its input with NEAREST taps whose texel index is
@@ -7,15 +7,15 @@ texel (xbr-lv2.glsl's 24 neighbour taps, ntsc-pass2's 65-tap FIR under
 the viewport-height stretch, every hqx/scalefx/sabr-family shader). A GL
 GPU re-fetches per output pixel and relies on the texture cache
 (ShaderEngine::renderMultipassPass dispatch, ShaderEngine.cpp:850-1475);
-on TPU re-evaluating tap-derived math at output resolution materializes
+here re-evaluating tap-derived math at output resolution materializes
 dozens of full-resolution planes through HBM — the round-1 xbr chain
 moved ~1.6 GB/frame for a 320x240 source.
 
 Factored evaluation reshapes the output grid [OH, OW] into
 [ry, rx, my, mx]: intra-run phase x axis runs, phases LEADING so the
 minor (tiled) dimensions stay large — phases-minor layouts put rx~6 in
-the lane dimension and ran every phase-mixing op at a few percent
-occupancy (xbr regressed to 23 fps). Texture taps whose index maps are
+the minor dimension and ran every phase-mixing op at a few percent
+occupancy. Texture taps whose index maps are
 constant within runs become [1, 1, my, mx] source-resolution planes;
 coordinate/phase math rides the phase axes as [ry, 1, my, 1] /
 [1, rx, 1, mx] broadcasts. NumPy broadcasting keeps every elementwise op
@@ -234,8 +234,8 @@ class Factorization:
         [OH, OW, C]. Separable: transpose the factored grid to
         (run-major, phase-minor) per axis and take rowsel/colsel along
         each axis as phase-interleaved strided slices (pure reshapes for
-        uniform integer ratios) — jnp.take gathers here ran at TPU
-        gather speed and dominated factored chains (ntsc pass1 moved
+        uniform integer ratios) — jnp.take gathers here dominated
+        factored chains where this was first measured (ntsc pass1 moved
         157 MB/batch through two gathers)."""
         c = data.shape[-1] if data.ndim else 1
         data = jnp.broadcast_to(data, (self.ry, self.rx, self.my, self.mx, c))

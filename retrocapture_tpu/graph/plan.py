@@ -171,13 +171,109 @@ class PresetCompileError(Exception):
     pass
 
 
-def _load_png_rgba(path: str) -> np.ndarray:
-    from PIL import Image
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# color type -> samples per pixel (8-bit depth only)
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
-    with Image.open(path) as im:
-        im = im.convert("RGBA")
-        arr = np.asarray(im, np.float32) / 255.0
-    return arr
+
+def _png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters (types 0-4) of a decompressed
+    IDAT stream; returns uint8 [height, stride]."""
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    pos = 0
+    for y in range(height):
+        ftype = raw[pos]
+        line = np.frombuffer(raw, np.uint8, stride, pos + 1).astype(np.int32)
+        pos += stride + 1
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: running sum per byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prior) & 0xFF
+        elif ftype in (3, 4):  # Average / Paeth: left-to-right dependency
+            cur_l = line.tolist()
+            up = prior.tolist()
+            for i in range(stride):
+                a = cur_l[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    cur_l[i] = (cur_l[i] + ((a + b) >> 1)) & 0xFF
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                    cur_l[i] = (cur_l[i] + pred) & 0xFF
+            cur = np.asarray(cur_l, np.int32)
+        else:
+            raise PresetCompileError(f"corrupt PNG: filter type {ftype} on row {y}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def _load_png_rgba(path: str) -> np.ndarray:
+    """Decode a LUT texture PNG to float32 RGBA [H, W, 4] in [0, 1] with
+    the standard library alone (zlib + struct). Handles non-interlaced
+    8-bit gray, gray+alpha, RGB, RGBA and palette images (palette alpha
+    from tRNS); anything else raises PresetCompileError naming what it
+    found."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != _PNG_SIGNATURE:
+        raise PresetCompileError(f"LUT {path}: not a PNG file")
+    pos, ihdr, palette, trns, idat = 8, None, None, None, []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
+        if zlib.crc32(ctype + body) != crc:
+            raise PresetCompileError(f"LUT {path}: corrupt PNG chunk {ctype!r}")
+        pos += 12 + length
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if ihdr is None:
+        raise PresetCompileError(f"LUT {path}: PNG has no IHDR chunk")
+    width, height, depth, color, _comp, _filt, interlace = ihdr
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        raise PresetCompileError(
+            f"LUT {path}: unsupported PNG (bit depth {depth}, color type "
+            f"{color}, interlace {interlace}); supported are non-interlaced "
+            "8-bit gray, gray+alpha, RGB, RGBA and palette images"
+        )
+    ch = _PNG_CHANNELS[color]
+    px = _png_unfilter(zlib.decompress(b"".join(idat)), height, width * ch, ch)
+    px = px.reshape(height, width, ch)
+    if color == 3:
+        if palette is None:
+            raise PresetCompileError(f"LUT {path}: palette PNG has no PLTE chunk")
+        alpha = np.full(len(palette), 255, np.uint8)
+        if trns is not None:
+            alpha[: len(trns)] = trns[: len(palette)]
+        lut = np.concatenate([palette, alpha[:, None]], axis=1)
+        rgba = lut[px[..., 0]]
+    else:
+        opaque = np.full((height, width, 1), 255, np.uint8)
+        gray = px[..., :1]
+        rgba = {
+            0: lambda: np.concatenate([gray, gray, gray, opaque], axis=-1),
+            4: lambda: np.concatenate([gray, gray, gray, px[..., 1:2]], axis=-1),
+            2: lambda: np.concatenate([px, opaque], axis=-1),
+            6: lambda: px,
+        }[color]()
+    return rgba.astype(np.float32) / 255.0
 
 
 def _compat_rewrites(src: str, shader_path: str, cfg) -> str:
@@ -354,18 +450,12 @@ class PassContext:
         # engine (None → fall back to embedding lut.data as a trace
         # constant, fine for the CPU oracle/tools). Embedded constants
         # become StableHLO literals: iq-canyon's four 1024x1024 LUTs
-        # inflated its program to 102 MB of HLO and an 11.4 GB TPU
-        # executable (timeout_tpu_r2.json crash).
+        # inflated its program to 102 MB of HLO and a multi-gigabyte
+        # serialized executable.
         self.lut_data = lut_data
         sh = shapes[pass_index]
         self.in_size = (sh.in_w, sh.in_h)
         self.out_size = (sh.out_w, sh.out_h)
-        # Warped taps traced so far in this pass: after the first few,
-        # further taps route to the XLA banded sampler — emitting one
-        # Pallas kernel per tap explodes Mosaic compile time on bulk-tap
-        # fragments (crt-mattias unrolls to 225 taps).
-        self.warp_taps_traced = 0
-        self.max_pallas_taps = 8
         # Active phase-factored grid (graph/factored.Factorization) or
         # None: set per evaluation attempt by runtime/engine._run_pass.
         self.factored = None

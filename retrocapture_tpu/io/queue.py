@@ -1,7 +1,7 @@
 """Host-side frame pipeline: bounded queue + double-buffered device feed
 and async device→host readback.
 
-TPU-native equivalents of three reference components:
+JAX equivalents of three reference components:
 
 * the capture thread's bounded frame queue with drop-oldest overflow
   (VideoCaptureRemote.h:182-188, ~20 frames);

@@ -1,6 +1,6 @@
 """Synthetic SMPTE-bar test source — the framework's test fixture.
 
-TPU-native equivalent of VideoCaptureTestPattern
+The equivalent of VideoCaptureTestPattern
 (src/capture/VideoCaptureTestPattern.cpp:56-102): 8 color bars chosen so
 channel collapse/swap is detectable, plus a moving 1-column-per-frame
 marker so temporal checks can assert the stream isn't frozen

@@ -1,12 +1,12 @@
 """Device-mesh parallelism for the frame pipeline.
 
 The reference scales with a thread pipeline inside one process plus an
-HTTP fan-out between hosts (SURVEY.md §2.8); the TPU-native equivalents:
+HTTP fan-out between hosts (SURVEY.md §2.8); the JAX equivalents:
 
 * **data parallelism** — the frame batch axis sharded over the ``data``
   mesh axis (independent frames, zero cross-device traffic in the chain);
 * **spatial parallelism** — the frame W axis sharded over ``space`` for
-  frames too large for one chip's VMEM working set; XLA inserts the
+  frames too large for one device's working set; XLA inserts the
   halo/collective traffic for the separable-resample matmuls;
 * **temporal streams** — PassFeedback/history presets serialize frames,
   so parallelism comes from sharding *independent streams* (one game

@@ -1,28 +1,27 @@
-"""Multi-host distribution: the TPU-native answer to the reference's
+"""Multi-host distribution: the JAX answer to the reference's
 `/raw` + `/meta` fan-out.
 
 The reference distributes work across machines by publishing the
 pre-shader MPEG-TS feed (`/raw`) plus a JSON control snapshot (`/meta`)
 over its own HTTP server, and a second instance decodes and mirrors the
 preset/parameters (streaming/HTTPServer.cpp, streaming/RemoteMetaSync.cpp,
-docs/ARCHITECTURE.md:176-194). On TPU pods the same roles map onto the
+docs/ARCHITECTURE.md:176-194). Across hosts the same roles map onto the
 runtime itself:
 
 * **media plane** (`/raw` analog): per-host frame queues feed
-  host-local shards of a global ``jax.Array``; DCN moves nothing for the
-  stateless chain because every host processes the streams it captured —
+  host-local shards of a global ``jax.Array``; the network moves nothing
+  for the stateless chain because every host processes the streams it
+  captured —
   ``jax.make_array_from_process_local_data`` assembles the global batch.
 * **control plane** (`/meta` analog): the preset path + parameter dict
   is tiny replicated state; ``broadcast_meta`` ships the coordinator's
   snapshot to every process (the RemoteMetaSync diff-and-apply loop
   collapses to one collective).
 
-``init()`` wraps ``jax.distributed.initialize`` — with the standard
-environment (``JAX_COORDINATOR``/num_processes/process_id, or a cloud
-TPU pod slice where everything is auto-detected) every process sees the
-global device set and ``parallel.mesh.make_mesh`` builds a pod-wide
-(data, space) mesh whose collectives ride ICI within a slice and DCN
-across slices.
+``init()`` wraps ``jax.distributed.initialize`` with an explicit
+coordinator (``JAX_COORDINATOR``/num_processes/process_id): every
+process then sees the global device set and ``parallel.mesh.make_mesh``
+builds a cluster-wide (data, space) mesh.
 
 Single-host meshes (including the driver's virtual-CPU mesh) work
 unchanged: ``init`` is a no-op when no coordinator is configured.
@@ -47,9 +46,8 @@ def init(
 ) -> bool:
     """Join the multi-host runtime. Arguments default from the
     environment (``JAX_COORDINATOR``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``); on a cloud TPU pod slice all three are
-    auto-detected and may stay None. Returns True when running
-    distributed, False for the single-host no-op."""
+    ``JAX_PROCESS_ID``). Returns True when running distributed, False
+    for the single-host no-op (no coordinator configured)."""
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR")
     if num_processes is None:
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "0")) or None
@@ -57,11 +55,7 @@ def init(
         pid = os.environ.get("JAX_PROCESS_ID")
         process_id = int(pid) if pid is not None else None
     if coordinator is None and num_processes is None:
-        try:  # TPU pod slice: fully auto-detected
-            jax.distributed.initialize()
-        except Exception:  # noqa: BLE001 - single host
-            return False
-        return jax.process_count() > 1
+        return False
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,

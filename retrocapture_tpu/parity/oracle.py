@@ -3,7 +3,7 @@
 ``GLOracle`` drives the native ``gloracle`` worker (native/gloracle): a
 headless Mesa-llvmpipe GL context that compiles each pass with the real
 GL compiler and renders it with real GL filtering/FBO formats.
-``OracleEngine`` mirrors the TPU Engine's multi-pass chain through it —
+``OracleEngine`` mirrors the JAX Engine's multi-pass chain through it —
 same preset parsing, same shapes (graph/scale.py), same uniform/sampler
 protocol (graph/plan.PassContext) — so ``Engine.apply`` output can be
 PSNR-checked against genuine GL output for ANY corpus preset, which is

@@ -1,4 +1,4 @@
-"""Per-frame pipeline around the Engine — the TPU-native equivalent of
+"""Per-frame pipeline around the Engine — the JAX equivalent of
 FrameCapturePipeline::renderAndDistributeFrame
 (src/core/FrameCapturePipeline.cpp:93) plus the final
 OpenGLRenderer::renderTexture blit (src/renderer/OpenGLRenderer.cpp:389).

@@ -23,7 +23,10 @@ def generate_preset_thumbnail(
     """Render ``preset_path`` applied to ``source`` (default: the SMPTE
     test pattern) and write a PNG preview. Returns False when the preset
     fails to compile (no thumbnail, like the reference's gallery)."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError("thumbnail PNGs need Pillow (pip install pillow)") from e
 
     from retrocapture_tpu import Engine
     from retrocapture_tpu.io.testpattern import TestPatternSource

@@ -62,11 +62,11 @@ def run_pair(preset: str, frame, viewport=(640, 480), n_frames=1, params=None):
     for name, val in (params or {}).items():
         o.set_parameter(name, val)
         e.set_parameter(name, val)
-    gl = tpu = None
+    gl = ours = None
     for _ in range(n_frames):
         gl = o.apply(frame)
-        tpu = np.asarray(e.apply(frame))
-    return psnr(gl, tpu)
+        ours = np.asarray(e.apply(frame))
+    return psnr(gl, ours)
 
 
 def test_stock_bit_exact(frame):

@@ -4,7 +4,7 @@ The kernel registry returns None on any gate miss and the engine falls
 back to the generic evaluator SILENTLY — correct output, ~2x the frame
 time. A varyings-metadata change once flipped the xbr TEX0 plane from
 vec4 to its declared vec2 and the old uniform ``len(affine) != 4`` gate
-disabled the kernel for a full bench cycle (237 vs 452 fps on chip).
+disabled the kernel for a full bench cycle.
 These tests pin the gates: at the exact bench geometries the kernels
 MUST engage; at geometries they cannot serve they must bail to the
 evaluator rather than crash."""
@@ -18,13 +18,12 @@ XBR_PRESET = "/root/reference/shaders/shaders_glsl/xbr/xbr-lv2.glslp"
 
 
 def _probe_engagement(preset, viewport, src_hw):
-    """Trace one chain on CPU with the platform gate bypassed and report
-    whether each registered hand kernel produced the pass output."""
+    """Trace one chain on CPU and report whether each registered hand
+    kernel produced the pass output."""
     from retrocapture_tpu.runtime.engine import Engine
 
     calls = {}
     saved_registry = dict(K._REGISTRY)
-    saved_find = K.find_kernel
 
     def wrap(name, fn):
         def probe(ctx, sh):
@@ -37,8 +36,6 @@ def _probe_engagement(preset, viewport, src_hw):
     try:
         for name, fn in saved_registry.items():
             K._REGISTRY[name] = wrap(name, fn)
-        # Bypass the TPU-platform gate only; keep the name lookup.
-        K.find_kernel = lambda p: K._REGISTRY.get(K.Path(p).name)
         e = Engine(viewport=viewport)
         assert e.load_preset(preset), e.last_error
         h, w = src_hw
@@ -49,7 +46,6 @@ def _probe_engagement(preset, viewport, src_hw):
     finally:
         K._REGISTRY.clear()
         K._REGISTRY.update(saved_registry)
-        K.find_kernel = saved_find
 
 
 @pytest.mark.slow

@@ -1,8 +1,8 @@
-"""The nnedi3 MXU kernel family vs the generic evaluator.
+"""The nnedi3 matmul kernel family vs the generic evaluator.
 
 nnedi3 embeds its neural net as ~nns*66 inline intBitsToFloat literals;
 the kernel parses them once into [32, nns] matrices and runs the pass
-as 32 shifted tap planes -> one MXU contraction -> fused mix ->
+as 32 shifted tap planes -> one matmul contraction -> fused mix ->
 interleave (graph/kernels._nnedi3_kernel). Reference semantics:
 shaders_glsl/nnedi3/shaders/nnedi3-nns16-win8x4-pass{1,2}-*.glsl
 nnedi3(): even output rows (pass1) / cols (pass2) pass the source
@@ -67,7 +67,7 @@ def test_nnedi3_kernel_matches_evaluator(tmp_path, shader, sx, sy, vw, vh):
     rng = np.random.default_rng(5)
     frame = (rng.random((24, 32, 3)) * 255).astype(np.uint8)
     preset = _mini_preset(tmp_path, shader, sx, sy)
-    out_k = _run(preset, (vw, vh), frame, "interpret")
+    out_k = _run(preset, (vw, vh), frame, "on")
     out_e = _run(preset, (vw, vh), frame, "off")
     assert out_k.shape == out_e.shape == (vh, vw, 3)
     # The passthrough rows/cols must be bit-identical (no NN math).

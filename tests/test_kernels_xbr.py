@@ -44,7 +44,7 @@ def _run(viewport, frame, kernels):
 def test_xbr_kernel_matches_evaluator(h, w, vw, vh):
     rng = np.random.default_rng(7)
     frame = (rng.random((h, w, 3)) * 255).astype(np.uint8)
-    out_k = _run((vw, vh), frame, "interpret")
+    out_k = _run((vw, vh), frame, "on")
     out_e = _run((vw, vh), frame, "off")
     assert out_k.shape == out_e.shape == (vh, vw, 3)
     err = np.abs(out_k - out_e).max()
@@ -56,7 +56,7 @@ def _run_tail(viewport, frame, tail):
     old = os.environ.get("RCTPU_XBR")
     os.environ["RCTPU_XBR"] = tail
     try:
-        return _run(viewport, frame, "interpret")
+        return _run(viewport, frame, "on")
     finally:
         if old is None:
             os.environ.pop("RCTPU_XBR", None)
@@ -114,7 +114,7 @@ def test_xbr_kernel_small_details_branch():
     from retrocapture_tpu.runtime.engine import Engine
 
     outs = []
-    for kernels in ("interpret", "off"):
+    for kernels in ("on", "off"):
         os.environ["RCTPU_KERNELS"] = kernels
         try:
             e = Engine(viewport=(256, 144))

@@ -5,7 +5,7 @@ the evaluator unrolls them at trace time, which explodes XLA compile
 time for the procedural raymarchers (256-step marches nested with
 50-step shadow loops — ShaderEngine.cpp:850-1475 runs these in real
 time, so compile cost is the only thing standing between the corpus'
-procedural family and the TPU). Loops of >= ROLL_MIN_TRIPS iterations
+procedural family and the device). Loops of >= ROLL_MIN_TRIPS iterations
 roll into one fori_loop after a short eager probe; these tests pin the
 rolled path's exactness against the eager unroll on every loop-carried
 construct the corpus uses (traced breaks, continues, out-params, global

@@ -93,3 +93,13 @@ def test_two_process_distributed_branches():
         assert r["local_rows_sum"] == 4  # each host addresses only its 4
         assert abs(r["total"] - total_expected) < 1.0  # one SPMD program
         assert r["meta"] == meta  # process 1 received the snapshot
+
+
+def test_init_without_coordinator_is_single_host(monkeypatch):
+    """No coordinator configured: init() joins nothing and says so (the
+    explicit-coordinator path is the only way to go distributed)."""
+    from retrocapture_tpu.parallel import multihost
+
+    for var in ("JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    assert multihost.init() is False

@@ -104,25 +104,6 @@ def test_grid_shaped_coords():
     np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def test_pallas_resample_u8_fallback_matches_einsum():
-    """resample_u8 (einsum fallback on CPU) matches quantized two-einsum."""
-    import jax.numpy as jnp
-
-    from retrocapture_tpu.ops.pallas.resample import _einsum_fallback, resample_u8
-    from retrocapture_tpu.ops.sampling import _axis_matrix
-
-    rng = np.random.default_rng(3)
-    tex = jnp.asarray(rng.random((24, 32, 3)).astype(np.float32))
-    u = ((np.arange(64) + 0.5) / 64).astype(np.float32)
-    v = ((np.arange(48) + 0.5) / 48).astype(np.float32)
-    ax = _axis_matrix(u, 32, True, "clamp_to_edge")
-    ay = _axis_matrix(v, 24, True, "clamp_to_edge")
-    a = np.asarray(resample_u8(tex, ay, ax))
-    b = np.asarray(_einsum_fallback(tex, jnp.asarray(ay), jnp.asarray(ax)))
-    assert a.dtype == np.uint8
-    np.testing.assert_array_equal(a, b)
-
-
 def test_separable_traced_matches_oracle_all_modes():
     """sample2d_separable (traced per-axis vectors -> on-device matmuls)
     matches the NumPy GL oracle for every (filter, wrap) combination,
@@ -209,13 +190,14 @@ void main() {
     np.testing.assert_allclose(out, want[..., :3], atol=1.0 / 255.0 + 1e-6)
 
 
-def test_banded_exact_on_violent_warps():
-    """The gather-free banded path (TPU fallback) must be exact for
-    arbitrary warps and all wrap modes — the round-1 version silently
-    clamped rows outside a heuristic band (ADVICE r1, medium)."""
+@pytest.mark.parametrize("wrap", WRAP_MODES)
+@pytest.mark.parametrize("linear", [False, True])
+def test_gather_exact_on_violent_warps(wrap, linear):
+    """Warped grids take the plain XLA gather on every backend; it must
+    be exact for arbitrary warps and every wrap mode, including a
+    vertical warp that varies violently along x."""
+    import jax
     import jax.numpy as jnp
-
-    from retrocapture_tpu.ops.sampling import _sample2d_banded
 
     rng = np.random.default_rng(13)
     tex = rng.random((24, 33, 4)).astype(np.float32)
@@ -223,26 +205,18 @@ def test_banded_exact_on_violent_warps():
     yy, xx = np.meshgrid(
         np.linspace(0, 1, ho), np.linspace(0, 1, wo), indexing="ij"
     )
-    # strong vertical warp: v varies violently along x (the failing case)
     u = (xx + 0.35 * np.sin(yy * 9) - 0.2).astype(np.float32)
     v = (yy * 1.6 - 0.3 + 0.45 * np.cos(xx * 7)).astype(np.float32)
-    for wrap in WRAP_MODES:
-        for lin in (False, True):
-            got = np.asarray(
-                _sample2d_banded(
-                    jnp.asarray(tex),
-                    jnp.asarray(u),
-                    jnp.asarray(v),
-                    filter_linear=lin,
-                    wrap_mode=wrap,
-                )
+    # Traced coordinates, as a shader's warp math produces them.
+    got = np.asarray(
+        jax.jit(
+            lambda t, uu, vv: sample2d(
+                t, uu, vv, filter_linear=linear, wrap_mode=wrap
             )
-            want = reference_sample2d_numpy(
-                tex, u, v, filter_linear=lin, wrap_mode=wrap
-            )
-            np.testing.assert_allclose(
-                got, want, atol=3e-6, err_msg=f"{wrap} lin={lin}"
-            )
+        )(jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v))
+    )
+    want = reference_sample2d_numpy(tex, u, v, filter_linear=linear, wrap_mode=wrap)
+    np.testing.assert_allclose(got, want, atol=3e-6, err_msg=f"{wrap} lin={linear}")
 
 
 @pytest.mark.parametrize("wrap", WRAP_MODES)

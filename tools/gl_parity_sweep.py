@@ -43,8 +43,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--skip-from", default="", metavar="CORPUS_JSON",
                     help="skip presets whose corpus status is timeout "
-                    "(XLA-CPU-compile monsters validated separately on TPU "
-                    "by tools/timeout_probe_tpu.py)")
+                    "(XLA-CPU-compile monsters, checked separately)")
     args = ap.parse_args()
 
     from retrocapture_tpu import Engine
@@ -76,11 +75,11 @@ def main() -> int:
             e = Engine(viewport=(640, 480))
             if not e.load_preset(str(path)):
                 raise RuntimeError(f"engine load: {e.last_error}")
-            gl = tpu = None
+            gl = ours = None
             for _ in range(args.frames):
                 gl = o.apply(frame)
-                tpu = np.asarray(e.apply(frame))
-            p = psnr(gl, tpu)
+                ours = np.asarray(e.apply(frame))
+            p = psnr(gl, ours)
             rec["psnr"] = round(p, 2) if np.isfinite(p) else "inf"
             o._oracle.close()
         except Exception as ex:  # noqa: BLE001

@@ -1,7 +1,7 @@
 """Assemble PARITY.md from sweep artifacts.
 
     python tools/make_report.py --corpus corpus.json [--glparity gl.json] \
-        [--bench bench.json] [--out PARITY.md]
+        [--out PARITY.md]
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--corpus", required=True)
     ap.add_argument("--glparity", default=None)
-    ap.add_argument("--bench", default=None)
     ap.add_argument("--out", default="PARITY.md")
     args = ap.parse_args()
 
@@ -43,7 +42,7 @@ def main() -> int:
         "",
         "`ok` = renders finite, non-flat output. `timeout` = XLA CPU compile",
         "exceeded the per-preset budget in the sweep harness (procedural",
-        "raymarchers, nnedi3 neural upscalers — they compile on TPU).",
+        "raymarchers, nnedi3 neural upscalers).",
         "`flat`/`nonfinite` include presets that are bit-identical to real",
         "GL (verified with the oracle): they depend on uniforms neither the",
         "reference nor stock GL populates.",
@@ -81,26 +80,6 @@ def main() -> int:
         worst = sorted((r for r in done if r["psnr"] != "inf"), key=lambda r: r["psnr"])[:10]
         for r in worst:
             lines.append(f"- {r['psnr']:.1f} dB — `{r['preset']}`")
-        lines.append("")
-
-    if args.bench and Path(args.bench).is_file():
-        b = json.loads(Path(args.bench).read_text())
-        lines += [
-            "## Throughput (one TPU v5e chip, bench.py)",
-            "",
-            f"**{b['value']} {b['unit']}** geomean across the 5 BASELINE",
-            f"configs = **{b['vs_baseline']}x** the 5,000 fps target.",
-            "",
-            "| config | fps | ms/frame | batch |",
-            "|---|---|---|---|",
-        ]
-        for c in b.get("configs", []):
-            if "fps" in c:
-                lines.append(
-                    f"| {c['name']} | {c['fps']} | {c['ms_per_frame']} | {c['batch']} |"
-                )
-            else:
-                lines.append(f"| {c['name']} | error | | |")
         lines.append("")
 
     Path(args.out).write_text("\n".join(lines) + "\n")
